@@ -9,11 +9,19 @@ Phases, each of which raises on any failed check (exit code != 0):
 
   build   compiles every CUDA kernel of the port from
           src/repro_torch/kernels/csrc/ with nvcc for sm_90a, all at once.
-  kernel  holds each kernel against its plain PyTorch version on the card
-          at the reference's test shapes and every zoo vocab, then times
-          the kernel, the plain version and one library call with CUDA
-          events at the shape the main path gives it, beside the bytes
-          bound (H100 SXM peak rates).
+  kernel  holds K1 (residual_xent) against its plain PyTorch version on
+          the card at the reference's test shapes and every zoo vocab,
+          then times the kernel, the plain version and one library call
+          with CUDA events at the shape the main path gives it, beside the
+          bytes bound (H100 SXM peak rates).
+  flash   holds K2 (flash_attention) against its plain version at the
+          reference's test cells and at head_dim 64/80/128 x three masks x
+          ragged lengths x GQA ratios 4 and 1, in f32 and bf16; then, at
+          the prefill shape q (1, 32768, 32, 128), k/v (1, 32768, 8, 128)
+          bf16 causal, against the memory-bounded chunked plain path
+          (the full plain version would need a 137 GB score tensor), and
+          times the kernel, the chunked plain path and one SDPA call
+          beside the operations bound.
   slice   one LM-scale GAL fit (repro_torch.core.gal_lm.fit_lm) at the
           published llama3-8b width with depth cut to 2 layers: two orgs,
           batch 4 x seq 512, 2 rounds of 4 local AdamW steps, residuals
@@ -21,6 +29,15 @@ Phases, each of which raises on any failed check (exit code != 0):
           just before the fit and read just after it: every kernel of
           the path must have launched. Checks: finite history that falls,
           residual rows summing to 0, predict(rounds=t) replaying the fit.
+  prefill the reference's prefill (scoring) step,
+          make_prefill_step(cfg, flash=True), at the published llama3-8b
+          width with depth cut to 2 layers, on (1, 32768) tokens (the
+          prefill_32k shape, batch cut 32 -> 1). Counters are zeroed just
+          before the step and read just after: K2 must have launched once
+          per layer. Checks: finite (1, 32768, 128256) logits that agree
+          with the flash=False step (chunked attention, chunk 1024), a
+          control that the comparison catches a wrong mask, and a
+          backward through K2 raising NotImplementedError.
 
 Prints the card's name and power limit, one JSON line of kernel figures,
 and as its last line {"ok": true, "device": {...}}. Exits non-zero without
@@ -39,10 +56,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks from NVIDIA's data sheet: HBM3 bytes/s, and f32 flop/s
-# outside the tensor cores.
+# H100 SXM peaks from NVIDIA's data sheet: HBM3 bytes/s, f32 flop/s
+# outside the tensor cores, and dense bf16 flop/s on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 ZOO_VOCABS = (32000, 32064, 49152, 51865, 65536, 100352, 128256, 131072,
               151936)
@@ -54,6 +72,28 @@ F32_ATOL, BF16_ATOL, ROW_SUM_ATOL = 2e-5, 5e-3, 1e-4
 # ~lr * d_model, and at d_model 4096 the example's lr leaves the orgs'
 # fitted values all noise (etas ~1e-4, train xent flat to 1e-6).
 N_LAYERS, BATCH, SEQ, ROUNDS, LOCAL_STEPS, LR = 2, 4, 512, 2, 4, 1e-4
+
+# K2: the reference's tolerances (tests/test_kernels.py), f32 and bf16; a
+# bf16 result must also stay within 2^-6 relative RMS of the plain one
+# (both round p and the output to bf16, 2^-9 each: a few 2^-9 apart).
+FLASH_F32_ATOL, FLASH_BF16_ATOL, FLASH_BF16_REL = 2e-5, 3e-2, 2.0 ** -6
+# (B, S, H, KV, hd, causal, window): the reference's four f32 cells and its
+# bf16 cell (tests/test_kernels.py); its head_dim-32 cell is held at 64, the
+# smallest head_dim the kernel takes (the CPU tests hold hd 32's plain
+# version against the reference)
+FLASH_REF_CELLS = [(2, 128, 4, 2, 64, True, None),
+                   (1, 200, 4, 4, 64, True, 64),
+                   (2, 256, 8, 2, 64, False, None),
+                   (1, 130, 2, 1, 128, True, 32)]
+FLASH_REF_BF16_CELL = (1, 128, 4, 2, 64, True, None)
+FLASH_HEAD_DIMS = (64, 80, 128)
+FLASH_MASKS = ((True, None), (True, 96), (False, 96))   # (causal, window)
+FLASH_LENGTHS = (130, 200, 1000)
+FLASH_HEADS = ((8, 2), (4, 4))             # GQA ratio 4 (llama3-8b), MHA
+# the prefill: llama3-8b's published width, depth 32 -> 2, the reference's
+# prefill_32k sequence (configs/base.py SHAPES), batch 32 -> 1; the plain
+# step runs attention in chunks of 1024 keys (launch/dryrun.py's policy)
+PREFILL_SEQ, PREFILL_CHUNK = 32768, 1024
 
 
 def check(ok, what):
@@ -160,13 +200,133 @@ def kernel_phase(dev):
             "library_ms": library_ms}
 
 
+def visible_pairs(s, causal, window):
+    """(query, key) pairs that K2's masks leave visible in one (batch,
+    head) of length s: the work these inputs need."""
+    i = np.arange(s, dtype=np.int64)
+    hi = i + 1 if causal else np.full(s, s, np.int64)
+    lo = np.maximum(0, i - window + 1) if window is not None else 0
+    return int((hi - lo).sum())
+
+
+def flash_phase(dev):
+    """K2 against its plain version; returns the kernel's figures."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ops import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models.attention import _chunked_attention, _repeat_kv
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    max_err = {}
+
+    def inputs(b, s, h, kv, hd, dtype, q_scale=0.5):
+        q = torch.randn((b, s, h, hd), generator=gen, device=dev) * q_scale
+        k = torch.randn((b, s, kv, hd), generator=gen, device=dev) * q_scale
+        v = torch.randn((b, s, kv, hd), generator=gen, device=dev)
+        return q.to(dtype), k.to(dtype), v.to(dtype)
+
+    def hold(out, want, label, bf16):
+        diff = (out.float() - want.float())
+        err = float(diff.abs().max())
+        rel = float(diff.norm() / want.float().norm())
+        tol = FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL
+        print(f"[flash] flash_attention {label}: max |kernel - plain| = "
+              f"{err:.3g} (tol {tol:g}), relative RMS {rel:.3g}"
+              + (f" (tol {FLASH_BF16_REL:g})" if bf16 else ""))
+        check(out.dtype == want.dtype and out.shape == want.shape,
+              f"flash_attention {label} output {out.dtype} "
+              f"{tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"flash_attention {label} "
+              f"finite")
+        check(err <= tol, f"flash_attention {label} error {err}")
+        check(not bf16 or rel <= FLASH_BF16_REL,
+              f"flash_attention {label} relative RMS {rel}")
+        max_err[label] = err
+
+    cells = [(c, torch.float32) for c in FLASH_REF_CELLS]
+    cells.append((FLASH_REF_BF16_CELL, torch.bfloat16))
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in FLASH_HEAD_DIMS:
+            for causal, window in FLASH_MASKS:
+                for s in FLASH_LENGTHS:
+                    for h, kv in FLASH_HEADS:
+                        cells.append(((2, s, h, kv, hd, causal, window),
+                                      dtype))
+    for (b, s, h, kv, hd, causal, window), dtype in cells:
+        q, k, v = inputs(b, s, h, kv, hd, dtype)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        hold(out, want, f"({b}, {s}, {h}, {kv}, {hd}) causal={causal} "
+             f"window={window} {str(dtype).removeprefix('torch.')}",
+             dtype == torch.bfloat16)
+
+    # the prefill shape: llama3-8b's heads at the reference's 32k prefill
+    b, s, h, kv, hd = 1, PREFILL_SEQ, 32, 8, 128
+    q, k, v = inputs(b, s, h, kv, hd, torch.bfloat16, q_scale=1.0)
+    positions = torch.arange(s, device=dev).expand(b, s)
+
+    def chunked():
+        return _chunked_attention(q, _repeat_kv(k, h), _repeat_kv(v, h),
+                                  positions, causal=True, window=None,
+                                  chunk=PREFILL_CHUNK)
+
+    label = f"({b}, {s}, {h}, {kv}, {hd}) causal bf16 prefill shape"
+    out = flash_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    hold(out, chunked(), label + " vs chunked plain", True)
+    del out
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=True),
+                 iters=10, warmup=2)
+    plain_ms = time_ms(chunked, iters=2, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True),
+        iters=10, warmup=2)
+    n_ops = 4 * hd * b * h * visible_pairs(s, True, None)
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_BF16_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"[flash] flash_attention {label}: kernel {ms:.4f} ms, plain "
+          f"(chunked, chunk {PREFILL_CHUNK}) {plain_ms:.4f} ms, library "
+          f"(SDPA) {library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+          f"{'operations' if ops_ms >= bytes_ms else 'bytes'} "
+          f"({n_ops:.4g} flop at {PEAK_BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
+          f"bytes {bytes_ms:.4f} ms for {n_bytes / 1e9:.3f} GB); "
+          f"{n_ops / ms / 1e9:.1f} TFLOP/s achieved")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:69",
+            "max_abs_err": max(max_err.values()),
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms}
+
+
+def zero_launches():
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.residual_xent import residual_xent_cuda
+    residual_xent_cuda.launches = 0
+    flash_attention_cuda.launches = 0
+
+
+def read_launches():
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.residual_xent import residual_xent_cuda
+    return {"residual_xent": residual_xent_cuda.launches,
+            "flash_attention": flash_attention_cuda.launches}
+
+
 def slice_phase(dev):
     """One full-width LM-scale GAL fit; returns each kernel's launches."""
     from repro_torch.configs import get_arch
     from repro_torch.core import gal_lm
     from repro_torch.core.losses import CrossEntropyLoss
     from repro_torch.data.tokens import make_token_stream, token_batches
-    from repro_torch.kernels.residual_xent import residual_xent_cuda
     from repro_torch.utils.pytree import tree_size
 
     cfg = replace(get_arch("llama3-8b"), n_layers=N_LAYERS)
@@ -192,14 +352,14 @@ def slice_phase(dev):
           f"{tree_size(orgs[0].params):,} params, init "
           f"{time.perf_counter() - t0:.1f} s")
 
-    residual_xent_cuda.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     res = gal_lm.fit_lm(orgs, toks, labels, rounds=ROUNDS,
                         local_steps=LOCAL_STEPS, use_kernel=True,
                         generator=torch.Generator(device=dev).manual_seed(2))
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {"residual_xent": residual_xent_cuda.launches}
+    launches = read_launches()
 
     hist = res.history["train_xent"]
     print(f"[slice] fit_lm engine={res.engine}: train_xent {hist}, "
@@ -208,7 +368,7 @@ def slice_phase(dev):
     print(f"[slice] {fit_s:.2f} s for {ROUNDS} rounds = "
           f"{fit_s / ROUNDS:.2f} s/round; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
-          f"residual_xent launches {launches['residual_xent']}")
+          f"launches {launches}")
     check(all(math.isfinite(v) for v in hist + res.etas),
           f"finite history {hist} {res.etas}")
     check(hist[-1] < hist[0], f"train xent falls: {hist}")
@@ -236,6 +396,131 @@ def slice_phase(dev):
     return launches
 
 
+def logits_gap(got, want, rows=2048):
+    """max |got - want| and ||got - want|| / ||want|| in f32, a block of
+    sequence rows at a time (an f32 copy of the whole logits is 17 GB)."""
+    err, num, den = 0.0, 0.0, 0.0
+    for r0 in range(0, got.shape[1], rows):
+        g = got[:, r0:r0 + rows].float()
+        w = want[:, r0:r0 + rows].float()
+        d = g - w
+        err = max(err, float(d.abs().max()))
+        num += float(d.square().sum())
+        den += float(w.square().sum())
+    return err, math.sqrt(num / den)
+
+
+def logits_atol(logits):
+    """Four bf16 ulps at the largest logit. Each step rounds each logit to
+    bf16 (half an ulp each), and the two attention outputs feeding the
+    layers above differ by up to an ulp of bf16, which moves a logit by
+    about one ulp before its rounding: three ulps, and one of margin."""
+    top = float(logits.abs().max())
+    return 4 * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def prefill_phase(dev):
+    """The reference's prefill step through K2 at full width on 32k
+    tokens; returns each kernel's launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import make_token_stream, token_batches
+    from repro_torch.kernels.ops import flash_attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.steps import make_prefill_step
+    from repro_torch.utils.pytree import tree_size
+
+    cfg = replace(get_arch("llama3-8b"), n_layers=N_LAYERS)
+    rng_np = np.random.default_rng(0)
+    stream = make_token_stream(rng_np, cfg.vocab, PREFILL_SEQ + 4096)
+    toks, _ = next(token_batches(stream, 1, PREFILL_SEQ, rng_np))
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(3), cfg,
+                             device=dev)
+    print(f"[prefill] {cfg.arch} d_model={cfg.d_model} heads={cfg.n_heads}/"
+          f"{cfg.n_kv_heads} hd={cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab} "
+          f"rope_theta={cfg.rope_theta:g} layers={cfg.n_layers} {cfg.dtype}: "
+          f"{tree_size(params):,} params; tokens {tuple(toks.shape)}")
+
+    def run(step, what):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"[prefill] {what}: {secs:.4f} s per prefill, "
+              f"{PREFILL_SEQ / secs:.0f} tokens/s, peak memory "
+              f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB above "
+              f"the {held / 2**30:.2f} GiB held before the step); launches "
+              f"{launches}")
+        return logits, launches
+
+    step = make_prefill_step(cfg, flash=True)
+    step(params, batch)                      # warm-up: cuBLAS picks kernels
+    logits, launches = run(step, "flash=True (K2)")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"K2 launched {launches['flash_attention']} times in a "
+          f"{cfg.n_layers}-layer prefill")
+    check(logits.shape == (1, PREFILL_SEQ, cfg.vocab)
+          and logits.dtype == torch.bfloat16, f"logits {logits.dtype} "
+          f"{tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "finite logits")
+
+    # where the step's device time goes, outside the counted run
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(params, batch)
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"[prefill] device time by kernel (torch.profiler, one step): "
+          f"{busy:.3f} ms busy")
+    for e in rows[:8]:
+        print(f"[prefill]   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<3d} {e.key[:90]}")
+
+    plain_cfg = replace(cfg, attn_chunk=PREFILL_CHUNK)
+    plain, plain_launches = run(make_prefill_step(plain_cfg, flash=False),
+                                f"flash=False, attn_chunk={PREFILL_CHUNK}")
+    check(plain_launches["flash_attention"] == 0, "the plain step ran K2")
+    tol = logits_atol(plain)
+    err, rel = logits_gap(logits, plain)
+    print(f"[prefill] flash=True vs flash=False logits: max |diff| {err:.4g} "
+          f"(tol {tol:g} = 4 bf16 ulps at max |logit| "
+          f"{float(plain.abs().max()):.4g}), relative RMS {rel:.4g}")
+    check(err <= tol, f"prefill logits differ by {err}")
+    # control: the same comparison catches a wrong mask in K2
+    wrong = make_prefill_step(replace(cfg, window=PREFILL_SEQ // 2),
+                              flash=True)(params, batch)
+    c_err, c_rel = logits_gap(wrong, plain)
+    print(f"[prefill] control, K2 with window {PREFILL_SEQ // 2}: max |diff| "
+          f"{c_err:.4g} (must exceed tol {tol:g}), relative RMS {c_rel:.4g}")
+    check(c_err > tol, "the logits comparison misses a wrong window")
+    del logits, plain, wrong
+    torch.cuda.empty_cache()
+
+    # a backward through K2 raises: the kernel has no backward
+    q = torch.randn((1, 128, 4, 64), device=dev).bfloat16().requires_grad_()
+    k = torch.randn((1, 128, 2, 64), device=dev).bfloat16()
+    out = flash_attention(q, k, k, causal=True)
+    try:
+        out.float().sum().backward()
+    except NotImplementedError as exc:
+        print(f"[prefill] backward through K2 raises NotImplementedError: "
+              f"{exc}")
+    else:
+        check(False, "a backward through K2 did not raise")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -252,11 +537,17 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain versions
+    torch.backends.cudnn.allow_tf32 = False         # stay in full f32
+
     build_phase()
     k1 = kernel_phase(dev)
-    launches = slice_phase(dev)
-    k1["launches"] = launches[k1["name"]]
-    print(json.dumps({"kernels": [k1]}))
+    k2 = flash_phase(dev)
+    torch.cuda.empty_cache()
+    k1["launches"] = slice_phase(dev)[k1["name"]]
+    torch.cuda.empty_cache()
+    k2["launches"] = prefill_phase(dev)[k2["name"]]
+    print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,9 +8,12 @@ asked for by name.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.residual_xent import residual_xent_cuda
 
 
@@ -29,3 +32,12 @@ def residual_xent(logits: torch.Tensor, labels: torch.Tensor,
     else:
         out = ref.residual_xent_ref(flat, lab)
     return out.reshape(*lead, v)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """GQA flash attention. q: (B,S,H,hd); k,v: (B,S,KV,hd) -> (B,S,H,hd)."""
+    if use_kernel and q.device.type != "cpu":
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)

@@ -1,14 +1,19 @@
-"""GQA attention for training: causal / sliding-window self-attention.
+"""GQA attention for training and prefill: causal / sliding-window
+self-attention.
 
 Ported from ``src/repro/models/attention.py``. Shapes: x (B, S, d);
-q (B, S, H, hd); k, v (B, S, KV, hd). KV heads are repeated to the full H
-before the score product; scores and softmax are f32 (the reference's
-``preferred_element_type=f32``: bf16 operands widened exactly, f32 sums),
-probabilities are cast back to v's dtype for the value product.
+q (B, S, H, hd); k, v (B, S, KV, hd). On the einsum and chunked paths KV
+heads are repeated to the full H before the score product; scores and
+softmax are f32 (the reference's ``preferred_element_type=f32``: bf16
+operands widened exactly, f32 sums), probabilities are cast back to v's
+dtype for the value product.
 
-``flash=True`` asks for the flash-attention kernel K2, which is not ported
-yet; cross attention and single-token decode come with the model families
-and the serving slice that use them (ROADMAP.md).
+``flash=True`` takes the flash-attention path of the reference: after
+rotary, the un-repeated q, k, v go to ``kernels.ops.flash_attention``
+(kernel K2 on a CUDA tensor, its plain version on the CPU; GQA lives in
+the kernel), then ``wo``. K2 is forward-only: a backward through it
+raises. Cross attention and single-token decode come with the model
+families and the serving slice that use them (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.layers import (
     apply_rotary, dense_init, dtype_of, rms_head_norm, rotary_freqs,
 )
@@ -77,16 +83,15 @@ def attention_train(params, cfg: ModelConfig, x, positions,
                     causal: bool = True, window: Optional[int] = None,
                     flash: bool = False):
     """Full-sequence self-attention. positions: (B, S). Returns (B, S, d)."""
-    if flash:
-        raise NotImplementedError(
-            "flash=True needs kernel K2 (src/repro/kernels/flash_attention.py"
-            ":flash_attention_kernel), which is not ported yet; see "
-            "ROADMAP.md")
     b = x.shape[0]
     q, k, v = _project_qkv(params, cfg, x, x)
     sin, cos = rotary_freqs(cfg, positions)
     q = apply_rotary(q, sin, cos)
     k = apply_rotary(k, sin, cos)
+    if flash:
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        out = out.reshape(out.shape[0], out.shape[1], -1)
+        return out @ params["wo"]
     k = _repeat_kv(k, cfg.n_heads)
     v = _repeat_kv(v, cfg.n_heads)
     s_len = q.shape[1]

@@ -1,12 +1,17 @@
-"""Local-fit training steps of the LM organizations.
+"""Step functions of the LM organizations: local fit and prefill.
 
 Ported from ``src/repro/train/steps.py``: the paper-faithful GAL local fit
 ``gal_residual_loss`` — the org's model regresses (ell_2) onto the dense
 broadcast pseudo-residual r in R^{B x S x V} (paper Alg. 1 step 3) — with
-an AdamW step and the per-round run of local steps. Gradients come from
-``torch.autograd``; the optimizer is the port's functional ``adamw``. The
-top-K residual transport, Alice's own xent objective, microbatch
-accumulation and the serving steps come in later slices (ROADMAP.md).
+an AdamW step and the per-round run of local steps, and the inference
+prefill ``make_prefill_step``: the full-sequence forward that produces
+logits for scoring (no cache; the reference leaves that to the serving
+layer). Gradients come from ``torch.autograd``; the optimizer is the
+port's functional ``adamw``. ``flash=True`` routes attention through
+kernel K2, which is forward-only, so a train step with it raises on the
+card. The top-K residual transport, Alice's own xent objective,
+microbatch accumulation and the decode step come in later slices
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -22,9 +27,14 @@ from repro_torch.utils.pytree import tree_leaves, tree_unflatten
 AUX_COEF = 0.01  # MoE load-balance weight
 
 
+def _forward(params, cfg: ModelConfig, batch, flash: bool):
+    logits, aux = tfm.apply(params, cfg, batch["tokens"], flash=flash)
+    return logits, aux
+
+
 def gal_residual_loss(params, cfg: ModelConfig, batch, flash: bool = False):
     """ell_2 regression onto the dense broadcast pseudo-residual."""
-    logits, aux = tfm.apply(params, cfg, batch["tokens"], flash=flash)
+    logits, aux = _forward(params, cfg, batch, flash)
     r = batch["residual"].to(logits.dtype)
     diff = logits - r
     l2 = torch.mean(torch.square(diff), dtype=torch.float32)
@@ -76,3 +86,16 @@ def run_local_steps(train_step, params, opt_state, batch, steps: int):
         for k, v in metrics.items():
             history.setdefault(k, []).append(v)
     return params, opt_state, {k: torch.stack(v) for k, v in history.items()}
+
+
+def make_prefill_step(cfg: ModelConfig, flash: bool = False):
+    """Inference prefill: full-sequence forward producing logits (scoring).
+    Cache materialization is left to the serving layer, as in the
+    reference. prefill_step: (params, batch) -> logits (B, S, vocab) in the
+    compute dtype; batch["tokens"] is (B, S) int."""
+
+    def prefill_step(params, batch):
+        logits, _ = _forward(params, cfg, batch, flash)
+        return logits
+
+    return prefill_step

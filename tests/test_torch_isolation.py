@@ -66,6 +66,28 @@ def test_port_imports_without_jax():
     assert int(out.stdout.split()[-1]) == len(mods) > 20
 
 
+@pytest.mark.parametrize("path", sorted((PORT / "kernels" / "csrc")
+                                        .glob("*.cu")),
+                         ids=lambda p: p.name)
+def test_kernels_compute_in_their_own_body(path):
+    """A kernel source includes the CUDA runtime and its type headers, no
+    library of finished kernels: no cuBLAS, cuDNN or CUTLASS/CuTe GEMM."""
+    includes = [line.split()[1] for line in path.read_text().splitlines()
+                if line.startswith("#include")]
+    allowed = {"<cmath>", "<cstdint>", "<cuda_runtime.h>", "<cuda_bf16.h>"}
+    assert includes and set(includes) <= allowed, includes
+
+
+def test_port_calls_no_fused_library_op():
+    """The port's path never reaches a fused library kernel or a compiled
+    plain version: attention goes through K2 or the plain einsums."""
+    for path in sorted(PORT.rglob("*.py")):
+        text = path.read_text()
+        for name in ("scaled_dot_product_attention", "torch.compile",
+                     "cudnn", "flash_attn"):
+            assert name not in text, f"{path.relative_to(ROOT)}: {name}"
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_arch("llama3-8b", smoke=True)

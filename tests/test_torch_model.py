@@ -90,14 +90,6 @@ def test_attention_matches(reference, window, chunk, qk_norm):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
-def test_flash_attention_not_ported_yet(reference):
-    cfg = port_cfg(_cfg(reference))
-    with pytest.raises(NotImplementedError, match="K2.*ROADMAP.md"):
-        port_attn.attention_train({}, cfg, torch.zeros(1, 4, cfg.d_model),
-                                  torch.zeros(1, 4, dtype=torch.int32),
-                                  flash=True)
-
-
 def test_forward_logits_match(reference):
     cfg = _cfg(reference)
     jp = reference.tfm.init_params(reference.jax.random.PRNGKey(0), cfg)

@@ -8,14 +8,19 @@ up in ``batching.fancy_primitive_batchers``; nothing in ``src/repro`` is
 edited. The fix is applied lazily, when the ``reference`` fixture first
 runs, never while a module is imported: the suite's workers each collect
 every test file, and a fix applied at collection would change which of the
-reference's own test files collect.
+reference's own test files collect. It is undone, and the reference
+modules it let import are forgotten, when the fixture's test module ends,
+so it never changes the outcome of a reference test that runs later in the
+same worker.
 
 The other ``tests/test_torch_*.py`` files import the ``reference`` fixture
 and the converters from here. Arrays cross between the frameworks as numpy
 (bf16 as ``uint16`` views, as ``repro.checkpoint`` stores it).
 """
 import ast
+import contextlib
 import dataclasses
+import sys
 import types
 
 import numpy as np
@@ -30,24 +35,64 @@ from repro_torch.data import tokens as port_tokens
 
 def apply_jax_fix():
     """Let ``key in batching.primitive_batchers`` work under jax 0.9.
-    Idempotent."""
+    Idempotent; returns whether this call added the fix."""
     from jax.interpreters import batching
     proxy = type(batching.primitive_batchers)
-    if "__contains__" not in vars(proxy):
-        proxy.__contains__ = (
-            lambda self, key: key in batching.fancy_primitive_batchers)
+    if "__contains__" in vars(proxy):
+        return False
+    proxy.__contains__ = (
+        lambda self, key: key in batching.fancy_primitive_batchers)
+    return True
+
+
+def remove_jax_fix():
+    """Undo ``apply_jax_fix``."""
+    from jax.interpreters import batching
+    del type(batching.primitive_batchers).__contains__
+
+
+def _reference_module_names():
+    return {n for n in sys.modules if n == "repro" or n.startswith("repro.")}
+
+
+@contextlib.contextmanager
+def reference_modules():
+    """The JAX reference's modules, imported after the jax 0.9 fix. On
+    exit the process is left as it was found: the fix is undone if this
+    call applied it, and the reference modules first imported here are
+    forgotten. Otherwise a reference test that imports ``repro.core``
+    inside its body would pass or fail depending on whether a port test
+    ran before it in the same worker."""
+    before = _reference_module_names()
+    added = apply_jax_fix()
+    try:
+        yield _import_reference()
+    finally:
+        if added:
+            remove_jax_fix()
+        for name in _reference_module_names() - before:
+            module = sys.modules.pop(name)
+            parent, _, child = name.rpartition(".")
+            if getattr(sys.modules.get(parent), child, None) is module:
+                delattr(sys.modules[parent], child)
 
 
 @pytest.fixture(scope="module")
 def reference():
-    """The JAX reference's modules, imported after the jax 0.9 fix."""
-    apply_jax_fix()
+    """The JAX reference's modules, for one test module
+    (``reference_modules``)."""
+    with reference_modules() as modules:
+        yield modules
+
+
+def _import_reference():
     import jax
     import jax.numpy as jnp
     from repro.configs import get_arch
     from repro.core import gal_lm, losses, weights
     from repro.data import tokens
     from repro.kernels import ref
+    from repro.kernels.flash_attention import flash_attention_kernel
     from repro.kernels.residual_xent import residual_xent_kernel
     from repro.models import attention, layers, transformer
     from repro.optim import lbfgs, optimizers
@@ -55,7 +100,8 @@ def reference():
     return types.SimpleNamespace(
         jax=jax, jnp=jnp, get_arch=get_arch, gal_lm=gal_lm, losses=losses,
         weights=weights, tokens=tokens, ref=ref,
-        residual_xent_kernel=residual_xent_kernel, attention=attention,
+        residual_xent_kernel=residual_xent_kernel,
+        flash_attention_kernel=flash_attention_kernel, attention=attention,
         layers=layers, tfm=transformer, lbfgs=lbfgs, optimizers=optimizers,
         steps=steps)
 
@@ -111,6 +157,23 @@ def assert_trees_close(got, want, atol, rtol=0.0):
 
 
 # ----------------------------------------------------------------- tests
+def test_reference_modules_leave_no_trace():
+    """Entering and leaving ``reference_modules`` leaves the fix and the
+    imported reference modules as they were: the reference's own tests
+    see the same process whether or not a port test ran first."""
+    from jax.interpreters import batching
+    proxy = type(batching.primitive_batchers)
+    had_fix = "__contains__" in vars(proxy)
+    before = _reference_module_names()
+    with reference_modules() as ref:
+        assert ref.gal_lm.fit_lm is not None
+        assert "repro.core.gal_lm" in sys.modules
+    assert ("__contains__" in vars(proxy)) == had_fix
+    assert _reference_module_names() == before
+    if not had_fix:
+        assert "repro.core.gal_lm" not in sys.modules
+
+
 def test_jax_fix_makes_reference_importable(reference):
     from jax._src.lax.lax import optimization_barrier_p
     from jax.interpreters import batching
@@ -143,6 +206,19 @@ def test_configs_field_for_field(reference):
     for smoke in (False, True):
         want = reference.get_arch("llama3-8b", smoke=smoke)
         got = port_get_arch("llama3-8b", smoke=smoke)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert got.param_count() == want.param_count()
+        assert got.hd == want.hd
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen3-1.7b",
+                                  "stablelm-1.6b"])
+def test_dense_configs_field_for_field(reference, arch):
+    """The other dense configs, full and smoke, as the reference has
+    them."""
+    for smoke in (False, True):
+        want = reference.get_arch(arch, smoke=smoke)
+        got = port_get_arch(arch, smoke=smoke)
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
         assert got.param_count() == want.param_count()
         assert got.hd == want.hd

@@ -8,20 +8,26 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases, each of which raises on any failed check (exit code != 0):
 
   build   compiles every CUDA kernel of the port from
-          src/repro_torch/kernels/csrc/ with nvcc for sm_90a, all at once.
+          src/repro_torch/kernels/csrc/ with nvcc for sm_90a, all at once;
+          fails if ptxas reports spills in K2's Hopper instances
+          (flash_fwd_ws), and prints whether it serialized their wgmma.
   kernel  holds K1 (residual_xent) against its plain PyTorch version on
           the card at the reference's test shapes and every zoo vocab,
           then times the kernel, the plain version and one library call
           with CUDA events at the shape the main path gives it, beside the
           bytes bound (H100 SXM peak rates).
   flash   holds K2 (flash_attention) against its plain version at the
-          reference's test cells and at head_dim 64/80/128 x three masks x
-          ragged lengths x GQA ratios 4 and 1, in f32 and bf16; then, at
-          the prefill shape q (1, 32768, 32, 128), k/v (1, 32768, 8, 128)
-          bf16 causal, against the memory-bounded chunked plain path
-          (the full plain version would need a 137 GB score tensor), and
-          times the kernel, the chunked plain path and one SDPA call
-          beside the operations bound.
+          reference's test cells, at head_dim 64/80/128 x three masks x
+          ragged lengths x GQA ratios 4 and 1, in f32 and bf16, and at the
+          edges of the Hopper design's 128-row, 128-key tiles (lengths,
+          windows, qwen3-1.7b's and stablelm-1.6b's heads, a strided
+          batch); then, at the prefill shape q (1, 32768, 32, 128), k/v
+          (1, 32768, 8, 128) bf16 causal, against the memory-bounded
+          chunked plain path (the full plain version would need a 137 GB
+          score tensor), and times the kernel, the chunked plain path and
+          one SDPA call beside the operations bound; and the same at
+          stablelm-1.6b's heads, q and k/v (1, 32768, 32, 64). Prints the
+          design the library dispatches each timed shape to.
   slice   one LM-scale GAL fit (repro_torch.core.gal_lm.fit_lm) at the
           published llama3-8b width with depth cut to 2 layers: two orgs,
           batch 4 x seq 512, 2 rounds of 4 local AdamW steps, residuals
@@ -34,7 +40,9 @@ Phases, each of which raises on any failed check (exit code != 0):
           width with depth cut to 2 layers, on (1, 32768) tokens (the
           prefill_32k shape, batch cut 32 -> 1). Counters are zeroed just
           before the step and read just after: K2 must have launched once
-          per layer. Checks: finite (1, 32768, 128256) logits that agree
+          per layer, and the profiler must show the Hopper design's
+          kernel (flash_fwd_ws) n_layers times in one more step. Checks:
+          finite (1, 32768, 128256) logits that agree
           with the flash=False step (chunked attention, chunk 1024), a
           control that the comparison catches a wrong mask, and a
           backward through K2 raising NotImplementedError.
@@ -45,6 +53,7 @@ a CUDA device, and when the port's sources are not beside it.
 """
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -90,10 +99,25 @@ FLASH_HEAD_DIMS = (64, 80, 128)
 FLASH_MASKS = ((True, None), (True, 96), (False, 96))   # (causal, window)
 FLASH_LENGTHS = (130, 200, 1000)
 FLASH_HEADS = ((8, 2), (4, 4))             # GQA ratio 4 (llama3-8b), MHA
+# (B, S, H, KV, hd, causal, window), bf16: the edges of the Hopper design's
+# 128-row, 128-key tiles, in length and in window, at both of its head dims;
+# qwen3-1.7b's heads (16 / 8, hd 128) and stablelm-1.6b's (32 / 32, hd 64)
+FLASH_EDGE_CELLS = (
+    [(2, s, 4, 2, hd, True, None) for hd in (128, 64)
+     for s in (1, 64, 127, 128, 129, 255, 257, 4097)]
+    + [(1, 300, 4, 2, hd, causal, window) for hd in (128, 64)
+       for causal in (True, False) for window in (1, 127, 128, 129)]
+    + [(1, 1000, 16, 8, 128, True, None), (1, 1000, 32, 32, 64, True, None)])
+# a batch of 3 read through a batch stride of twice the contiguous one
+FLASH_STRIDED_BATCH = (3, 200, 8, 2)
 # the prefill: llama3-8b's published width, depth 32 -> 2, the reference's
 # prefill_32k sequence (configs/base.py SHAPES), batch 32 -> 1; the plain
 # step runs attention in chunks of 1024 keys (launch/dryrun.py's policy)
 PREFILL_SEQ, PREFILL_CHUNK = 32768, 1024
+# K2 timed at the prefill length with each head layout of the Hopper
+# design's head dims: (H, KV, hd) of llama3-8b and of stablelm-1.6b
+TIMED_HEADS = ((32, 8, 128), (32, 32, 64))
+HOPPER_DESIGN, HOPPER_KERNEL = "tma-wgmma-ws", "flash_fwd_ws"
 
 
 def check(ok, what):
@@ -116,14 +140,76 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def ptxas_functions(report):
+    """{kernel name: (spill stores, spill loads)} from a -Xptxas -v report."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+        elif name and "spill stores" in line:
+            words = line.replace(",", "").split()
+            out[name] = (int(words[words.index("stores") - 3]),
+                         int(words[words.index("loads") - 3]))
+            name = None
+    return out
+
+
+def time_in_turns(fns, rounds=6, iters=10, warmup=2):
+    """{name: [ms per turn]}: each fn timed by time_ms, in rounds that run
+    the fns forwards, then backwards, so that drift (the card's clock
+    under its power limit) falls on all of them alike."""
+    names = list(fns)
+    out = {name: [] for name in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            out[name].append(time_ms(fns[name], iters=iters, warmup=warmup))
+    return out
+
+
+class SmClock:
+    """Samples the SM clock and power draw with nvidia-smi while open."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "200"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=60)
+        self.samples = [tuple(float(x) for x in line.split(","))
+                        for line in out.splitlines() if "," in line]
+
+    def __str__(self):
+        busy = [c for c, w in self.samples if w > 300]
+        top = max((w for _, w in self.samples), default=0.0)
+        return (f"nvidia-smi, {len(self.samples)} samples: SM clock "
+                f"{min(busy, default=0):.0f}-{max(busy, default=0):.0f} MHz "
+                f"while drawing over 300 W, power up to {top:.0f} W")
+
+
 def build_phase():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    reports = build.build_all()
+    build.build_all()
     secs = time.perf_counter() - t0
-    for name, text in reports.items():
-        print(f"[build] {name}: nvcc report\n{text.strip()}")
+    for name in build.KERNELS:
+        print(f"[build] {name}: nvcc report\n{build.report(name).strip()}")
     print(f"[build] kernels {list(build.KERNELS)} ready in {secs:.1f} s")
+    report = build.report("flash_attention")
+    ws = {n: sp for n, sp in ptxas_functions(report).items()
+          if HOPPER_KERNEL in n}
+    # head_dim 64 and 128
+    check(len(ws) == 2, f"ptxas reports {len(ws)} {HOPPER_KERNEL} instances")
+    for name, (stores, loads) in ws.items():
+        print(f"[build] {name}: {stores} bytes spill stores, {loads} bytes "
+              f"spill loads")
+        check(stores == 0 and loads == 0, f"{name} spills")
+    serial = [line for line in report.splitlines() if "serialized" in line]
+    print(f"[build] ptxas serialized wgmma: {'yes' if serial else 'no'}"
+          + "".join(f"\n[build]   {line.strip()}" for line in serial))
 
 
 def kernel_phase(dev):
@@ -211,7 +297,8 @@ def visible_pairs(s, causal, window):
 
 def flash_phase(dev):
     """K2 against its plain version; returns the kernel's figures."""
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, kernel_design)
     from repro_torch.kernels.ops import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.models.attention import _chunked_attention, _repeat_kv
@@ -252,6 +339,7 @@ def flash_phase(dev):
                     for h, kv in FLASH_HEADS:
                         cells.append(((2, s, h, kv, hd, causal, window),
                                       dtype))
+    cells += [(c, torch.bfloat16) for c in FLASH_EDGE_CELLS]
     for (b, s, h, kv, hd, causal, window), dtype in cells:
         q, k, v = inputs(b, s, h, kv, hd, dtype)
         out = flash_attention(q, k, v, causal=causal, window=window)
@@ -260,51 +348,82 @@ def flash_phase(dev):
         hold(out, want, f"({b}, {s}, {h}, {kv}, {hd}) causal={causal} "
              f"window={window} {str(dtype).removeprefix('torch.')}",
              dtype == torch.bfloat16)
+    b, s, h, kv = FLASH_STRIDED_BATCH
+    for hd in (128, 64):
+        q, k, v = (t[::2] for t in inputs(2 * b, s, h, kv, hd,
+                                          torch.bfloat16))
+        check(not q.is_contiguous(), "the strided batch is contiguous")
+        out = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True)
+        hold(out, want, f"({b}, {s}, {h}, {kv}, {hd}) causal bf16, batch "
+             f"stride {q.stride(0)} (contiguous {s * h * hd})", True)
 
-    # the prefill shape: llama3-8b's heads at the reference's 32k prefill
-    b, s, h, kv, hd = 1, PREFILL_SEQ, 32, 8, 128
-    q, k, v = inputs(b, s, h, kv, hd, torch.bfloat16, q_scale=1.0)
-    positions = torch.arange(s, device=dev).expand(b, s)
+    # the prefill length: llama3-8b's heads (the main path's shape), then
+    # stablelm-1.6b's, each against the chunked plain path, then timed
+    timed = []
+    for h, kv, hd in TIMED_HEADS:
+        b, s = 1, PREFILL_SEQ
+        q, k, v = inputs(b, s, h, kv, hd, torch.bfloat16, q_scale=1.0)
+        positions = torch.arange(s, device=dev).expand(b, s)
 
-    def chunked():
-        return _chunked_attention(q, _repeat_kv(k, h), _repeat_kv(v, h),
-                                  positions, causal=True, window=None,
-                                  chunk=PREFILL_CHUNK)
+        def chunked():
+            return _chunked_attention(q, _repeat_kv(k, h), _repeat_kv(v, h),
+                                      positions, causal=True, window=None,
+                                      chunk=PREFILL_CHUNK)
 
-    label = f"({b}, {s}, {h}, {kv}, {hd}) causal bf16 prefill shape"
-    out = flash_attention_cuda(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    hold(out, chunked(), label + " vs chunked plain", True)
-    del out
-    torch.cuda.empty_cache()
-    ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=True),
-                 iters=10, warmup=2)
-    plain_ms = time_ms(chunked, iters=2, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True),
-        iters=10, warmup=2)
-    n_ops = 4 * hd * b * h * visible_pairs(s, True, None)
-    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_BF16_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"[flash] flash_attention {label}: kernel {ms:.4f} ms, plain "
-          f"(chunked, chunk {PREFILL_CHUNK}) {plain_ms:.4f} ms, library "
-          f"(SDPA) {library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-          f"{'operations' if ops_ms >= bytes_ms else 'bytes'} "
-          f"({n_ops:.4g} flop at {PEAK_BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
-          f"bytes {bytes_ms:.4f} ms for {n_bytes / 1e9:.3f} GB); "
-          f"{n_ops / ms / 1e9:.1f} TFLOP/s achieved")
+        design = kernel_design(q.dtype, hd)
+        label = f"({b}, {s}, {h}, {kv}, {hd}) causal bf16 [{design}]"
+        out = flash_attention_cuda(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        hold(out, chunked(), label + " vs chunked plain", True)
+        del out
+        torch.cuda.empty_cache()
+        # the kernel beside one SDPA call, in turns
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        fns = {"K2": lambda: flash_attention_cuda(q, k, v, causal=True),
+               "SDPA": lambda: (
+                   torch.nn.functional.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True))}
+        with SmClock() as clock:
+            turns = time_in_turns(fns)
+        med = {name: statistics.median(t) for name, t in turns.items()}
+        for name, t in turns.items():
+            print(f"[flash]   {name:>12}: median {med[name]:.4f} ms of "
+                  f"{len(t)} turns [{' '.join(f'{x:.4f}' for x in t)}]")
+        print(f"[flash]   {clock}")
+        ms, library_ms = med["K2"], med["SDPA"]
+        plain_ms = time_ms(chunked, iters=2, warmup=1)
+        n_ops = 4 * hd * b * h * visible_pairs(s, True, None)
+        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+        bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = n_ops / PEAK_BF16_FLOP_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        print(f"[flash] flash_attention {label}: kernel {ms:.4f} ms "
+              f"({n_ops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of the "
+              f"bound), plain (chunked, chunk {PREFILL_CHUNK}) "
+              f"{plain_ms:.4f} ms, library (SDPA) {library_ms:.4f} ms "
+              f"({n_ops / library_ms / 1e9:.1f} TFLOP/s); bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({n_ops:.4g} flop at "
+              f"{PEAK_BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; bytes "
+              f"{bytes_ms:.4f} ms for {n_bytes / 1e9:.3f} GB)")
+        timed.append({"shape": [[b, s, h, hd], [b, s, kv, hd]],
+                      "design": design, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms})
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    main, hd64 = timed
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:69",
+            "design": main["design"],
             "max_abs_err": max(max_err.values()),
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": library_ms}
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "hd64": hd64}
 
 
 def zero_launches():
@@ -424,8 +543,10 @@ def prefill_phase(dev):
     tokens; returns each kernel's launches."""
     from repro_torch.configs import get_arch
     from repro_torch.data.tokens import make_token_stream, token_batches
+    from repro_torch.kernels.flash_attention import kernel_design
     from repro_torch.kernels.ops import flash_attention
     from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import dtype_of
     from repro_torch.train.steps import make_prefill_step
     from repro_torch.utils.pytree import tree_size
 
@@ -459,6 +580,10 @@ def prefill_phase(dev):
               f"{launches}")
         return logits, launches
 
+    design = kernel_design(dtype_of(cfg), cfg.hd)
+    print(f"[prefill] K2 design for {cfg.dtype} at head_dim {cfg.hd}: "
+          f"{design}")
+    check(design == HOPPER_DESIGN, f"the prefill's K2 design is {design}")
     step = make_prefill_step(cfg, flash=True)
     step(params, batch)                      # warm-up: cuBLAS picks kernels
     logits, launches = run(step, "flash=True (K2)")
@@ -486,6 +611,15 @@ def prefill_phase(dev):
     for e in rows[:8]:
         print(f"[prefill]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<3d} {e.key[:90]}")
+    k2_rows = [e for e in rows if HOPPER_KERNEL in e.key]
+    k2_ms = sum(e.self_device_time_total for e in k2_rows) / 1e3
+    print(f"[prefill] K2 ({HOPPER_KERNEL}): {k2_ms:.3f} ms, "
+          f"{k2_ms / busy:.1%} of the device time, "
+          f"x{sum(e.count for e in k2_rows)}")
+    check(sum(e.count for e in k2_rows) == cfg.n_layers,
+          f"the profiler shows {HOPPER_KERNEL} "
+          f"{sum(e.count for e in k2_rows)} times in a {cfg.n_layers}-layer "
+          f"prefill")
 
     plain_cfg = replace(cfg, attn_chunk=PREFILL_CHUNK)
     plain, plain_launches = run(make_prefill_step(plain_cfg, flash=False),

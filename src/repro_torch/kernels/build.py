@@ -3,10 +3,12 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``build/repro_torch/lib<name>-<hash>.so`` under the checkout (a
 directory ``.gitignore`` lists), for ``sm_90a``. The file name carries a
-hash of the source, so an edited source is rebuilt and a built one is
-reused. ``build_all`` starts one ``nvcc`` per stale source, all at once,
-and waits for every one; a failed build raises with the compiler's output.
-Nothing is built when a module is imported.
+hash of the source, the ``csrc/*.cuh`` headers and the compiler flags, so
+an edited source, header or flag is rebuilt and a built one is reused.
+``build_all`` starts one ``nvcc`` per stale source, all at once, and waits
+for every one; a failed build raises with the compiler's output, and a
+good one keeps it beside the library (``report``). Nothing is built when a
+module is imported.
 """
 from __future__ import annotations
 
@@ -39,9 +41,16 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def report(name: str) -> str:
+    """The compiler's output (``-Xptxas -v``) of the built library."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
@@ -66,6 +75,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{text}")
         else:
+            out.with_suffix(".log").write_text(text)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))

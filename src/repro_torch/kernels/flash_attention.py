@@ -1,14 +1,23 @@
 """K2 on Hopper: forward-only GQA flash attention, CUDA C++ for sm_90a.
 
 Replaces ``src/repro/kernels/flash_attention.py:flash_attention_kernel``
-(Pallas body ``_flash_kernel``). The kernel is ``csrc/flash_attention.cu``:
-one block per (batch * head, 64-query tile), 64-key K/V tiles in shared
-memory, an f32 online softmax in registers, ``mma.sync`` bf16 products with
-f32 accumulation (FMA in f32 for f32 inputs), and the key loop clipped to
-the causal limit and the window; its header says what bounds it. It is
-built with ``nvcc`` at first launch (``repro_torch.kernels.build``) and
-bound through a plain C interface with ``ctypes``, launched on PyTorch's
-current stream.
+(Pallas body ``_flash_kernel``). The kernel is ``csrc/flash_attention.cu``,
+with one design per (dtype, head_dim); the library chooses it, and
+``kernel_design`` reads its name from there:
+
+* ``"tma-wgmma-ws"`` (bf16, head_dim 64 and 128): one block of three
+  warpgroups per (batch * head, 128-query tile); a producer warpgroup
+  streams 128-key K/V tiles by TMA through an mbarrier ring, and two
+  consumer warpgroups run both products on ``wgmma`` with the online
+  softmax in registers;
+* ``"mma-sync"`` (bf16, head_dim 80) and ``"fma"`` (f32): one 4-warp block
+  per (batch * head, 64-query tile), 64-key K/V tiles staged in shared
+  memory, ``mma.sync`` bf16 products or FMA in f32.
+
+Every design clips the key loop to the causal limit and the window; the
+source's header says what bounds it. It is built with ``nvcc`` at first
+launch (``repro_torch.kernels.build``) and bound through a plain C
+interface with ``ctypes``, launched on PyTorch's current stream.
 
 ``flash_attention_cuda`` takes CUDA tensors only and never falls back to
 the plain version (``repro_torch.kernels.ref.flash_attention_ref``); the
@@ -29,7 +38,6 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 128)
-_MAX_Q_TILES = 65535                  # the grid's y extent, 64 rows a tile
 
 
 def _lib() -> ctypes.CDLL:
@@ -43,7 +51,17 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_design.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.flash_attention_design.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_design(dtype: torch.dtype, hd: int) -> str:
+    """The design the built library dispatches (dtype, hd) to."""
+    name = _lib().flash_attention_design(_DTYPES[dtype], hd)
+    if name is None:
+        raise ValueError(f"no K2 design takes {dtype} at head_dim {hd}")
+    return name.decode()
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,6 +71,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"flash_attention_cuda needs q, k and v on one CUDA device; got "
             f"{q.device}, {k.device} and {v.device}")
+    check_layout(q, k, v, window)
+
+
+def check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: Optional[int]) -> None:
+    """What the kernel takes, short of the device: dtypes, shapes, the
+    grid's batch * heads extent and the strides. Raises on anything else;
+    the library refuses a sequence with more query tiles than the grid of
+    its design holds."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must all be float32 or all bfloat16; "
                         f"got {q.dtype}, {k.dtype} and {v.dtype}")
@@ -71,14 +98,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{HEAD_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"window must be at least 1, got {window}")
-    if b * h >= 2 ** 31 or -(-s // 64) > _MAX_Q_TILES:
+    if b * h >= 2 ** 31 or s >= 2 ** 31:
         raise ValueError(f"(B, S, H) = ({b}, {s}, {h}) exceeds the kernel's "
                          f"grid")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s head_dim axis must be contiguous")
-        # bf16 rows are read 16 bytes at a time: every row has to start on
-        # a 16-byte boundary
+        # bf16 rows are read 16 bytes at a time, by TMA where the design
+        # uses it: every row has to start on a 16-byte boundary
         if t.dtype == torch.bfloat16 and (
                 any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16):
             raise ValueError(f"{name}'s rows must start on 16-byte "

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.kernels import ref as port_ref
+from repro_torch.kernels import flash_attention as k2
 from repro_torch.kernels.flash_attention import (
     FlashAttention, flash_attention_cuda,
 )
@@ -188,6 +189,44 @@ def test_flash_attention_backward_raises():
         FlashAttention.backward(None, torch.ones(1, 4, 2, 64))
 
 
+@pytest.mark.parametrize("axis", ["batch x heads", "sequence"])
+def test_flash_attention_grid_check(axis):
+    """The wrapper refuses what the kernel's grid cannot index before any
+    launch: B * H of 2^31 blocks along x, or a sequence past the C
+    interface's int. One less passes. The inputs are one row broadcast,
+    so nothing large is allocated."""
+    row = torch.zeros((1, 1, 1, 64), dtype=torch.bfloat16)
+
+    def qkv(n):
+        b, s, h = (2, 1, n // 2) if axis == "batch x heads" else (1, n, 1)
+        return (row.expand(b, s, h, 64), row.expand(b, s, 1, 64),
+                row.expand(b, s, 1, 64))
+
+    k2.check_layout(*qkv(2 ** 31 - 2), window=None)
+    with pytest.raises(ValueError, match="grid"):
+        k2.check_layout(*qkv(2 ** 31), window=None)
+
+
+@pytest.mark.parametrize("where", ["row stride", "base address"])
+def test_flash_attention_refuses_rows_off_16_bytes(where):
+    """bf16 rows are read 16 bytes at a time (by TMA in the Hopper
+    design): a head stride that is not a multiple of 8 elements, or a base
+    that is not 16-byte aligned, raises before any launch."""
+    b, s, h, kv, hd = 1, 16, 2, 1, 64
+    k = torch.zeros((b, s, kv, hd), dtype=torch.bfloat16)
+    if where == "row stride":
+        q = torch.zeros((b, s, h, hd + 4), dtype=torch.bfloat16)[..., :hd]
+        assert q.stride(2) % 8
+    else:
+        flat = torch.zeros(b * s * h * hd + 8, dtype=torch.bfloat16)
+        q = flat[4:4 + b * s * h * hd].view(b, s, h, hd)
+        assert q.data_ptr() % 16
+    k2.check_layout(q.clone(memory_format=torch.contiguous_format), k, k,
+                    window=None)
+    with pytest.raises(ValueError, match="16-byte"):
+        k2.check_layout(q, k, k, window=None)
+
+
 # ------------------------------------------------------------- on the card
 @pytest.fixture
 def cuda_device():
@@ -217,6 +256,16 @@ def _hold_on_card(got, want, dtype):
     (1, 128, 4, 2, 64, True, None, "bfloat16"),
     (2, 200, 8, 2, 128, True, 64, "bfloat16"),
     (1, 5, 4, 2, 64, True, None, "bfloat16"),     # shorter than a tile
+] + [  # the edges of the Hopper design's 128-row, 128-key tiles
+    (2, s, 4, 2, hd, True, None, "bfloat16")
+    for hd in (128, 64) for s in (1, 64, 127, 128, 129, 255, 257, 4097)
+] + [
+    (1, 300, 4, 2, hd, causal, window, "bfloat16")
+    for hd in (128, 64) for causal in (True, False)
+    for window in (1, 127, 128, 129)
+] + [
+    (1, 1000, 16, 8, 128, True, None, "bfloat16"),  # qwen3-1.7b's heads
+    (1, 1000, 32, 32, 64, True, None, "bfloat16"),  # stablelm-1.6b's
 ])
 def test_flash_attention_cuda_matches_plain(cuda_device, b, s, h, kv, hd,
                                             causal, window, dtype):
@@ -247,6 +296,54 @@ def test_flash_attention_cuda_reads_strided_views(cuda_device, dtype):
                                         vv.contiguous(), causal=True,
                                         window=40)
     _hold_on_card(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 64])
+def test_flash_attention_cuda_reads_a_strided_batch(cuda_device, hd):
+    """A batch of 3 taken as every other entry of a batch of 6: the batch
+    stride is not the contiguous one, and TMA reads through it."""
+    b, s, h, kv = 3, 200, 8, 2
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)[::2]
+               for a in _qkv(2 * b, s, h, kv, hd, seed=11))
+    assert q.shape[0] == b and not q.is_contiguous()
+    got = flash_attention(q, k, v, causal=True)
+    want = port_ref.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=True)
+    _hold_on_card(got, want, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 128, "tma-wgmma-ws"),
+    (torch.bfloat16, 64, "tma-wgmma-ws"),
+    (torch.bfloat16, 80, "mma-sync"),
+    (torch.float32, 128, "fma"),
+    (torch.float32, 80, "fma"),
+    (torch.float32, 64, "fma"),
+])
+def test_flash_attention_cuda_design(cuda_device, dtype, hd, want):
+    """The built library dispatches bf16 at head_dim 64 and 128 to the
+    Hopper design, bf16 at head_dim 80 to the mma.sync one and f32 to the
+    FMA one."""
+    assert k2.kernel_design(dtype, hd) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,rows", [(torch.bfloat16, 128, 128),
+                                           (torch.bfloat16, 80, 64),
+                                           (torch.float32, 64, 64)])
+def test_flash_attention_cuda_grid_limit_follows_the_design(
+        cuda_device, dtype, hd, rows):
+    """The library refuses a sequence of more than 65535 query tiles of
+    the height its design launches, before it reads any operand (the
+    pointers here are null)."""
+    s = 65535 * rows + 1
+    strides = (s * 2 * hd, 2 * hd, hd)
+    code = k2._lib().flash_attention_launch(
+        None, None, None, None, k2._DTYPES[dtype], 1, s, 2, 1, hd,
+        *strides, *strides, *strides, 1, 0, hd ** -0.5, None)
+    assert code == 1                       # cudaErrorInvalidValue
 
 
 @pytest.mark.cuda

@@ -7,6 +7,7 @@ rather than run on the CPU when no device is asked for and no card exists.
 """
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -66,16 +67,21 @@ def test_port_imports_without_jax():
     assert int(out.stdout.split()[-1]) == len(mods) > 20
 
 
-@pytest.mark.parametrize("path", sorted((PORT / "kernels" / "csrc")
-                                        .glob("*.cu")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted(
+    p for p in (PORT / "kernels" / "csrc").iterdir()
+    if p.suffix in (".cu", ".cuh")), ids=lambda p: p.name)
 def test_kernels_compute_in_their_own_body(path):
-    """A kernel source includes the CUDA runtime and its type headers, no
-    library of finished kernels: no cuBLAS, cuDNN or CUTLASS/CuTe GEMM."""
-    includes = [line.split()[1] for line in path.read_text().splitlines()
-                if line.startswith("#include")]
-    allowed = {"<cmath>", "<cstdint>", "<cuda_runtime.h>", "<cuda_bf16.h>"}
-    assert includes and set(includes) <= allowed, includes
+    """A kernel source or header includes the CUDA runtime, ``cuda.h``
+    (the ``CUtensorMap`` type and enums that TMA needs) and the type
+    headers, no library of finished kernels: no cuBLAS, cuDNN or
+    CUTLASS/CuTe. wgmma, TMA and mbarriers are inline PTX."""
+    includes = [m.group(1) for m in (
+        re.match(r"\s*#\s*include\s*(\S+)", line)
+        for line in path.read_text().splitlines()) if m]
+    allowed = {"<cmath>", "<cstdint>", "<cuda.h>", "<cuda_runtime.h>",
+               "<cuda_bf16.h>"}
+    assert set(includes) <= allowed, includes
+    assert includes or path.suffix == ".cuh", f"{path.name} includes nothing"
 
 
 def test_port_calls_no_fused_library_op():

@@ -46,6 +46,21 @@ Phases, each of which raises on any failed check (exit code != 0):
           with the flash=False step (chunked attention, chunk 1024), a
           control that the comparison catches a wrong mask, and a
           backward through K2 raising NotImplementedError.
+  tabular the tabular GAL fit (repro_torch.core.gal.fit, python engine)
+          on the card: (c) first, the card against the CPU on the same
+          seeded draws (the quickstart's four org models at n 512, one
+          round; then six rounds with the MLP org swapped for a Linear
+          one); (a) the quickstart's model-autonomy fit at n 16384, d 16,
+          four orgs [Linear, StumpBoost(40), KernelRidge, MLP((32,))], mse,
+          6 rounds, test MAD, with a train loss that must not rise; (b) a
+          K = 1024 classification fit (make_blobs n 20480, d 64), orgs
+          [Linear, MLP((64,))] x 2, xent, 4 rounds, test accuracy, whose
+          residual goes through K1: counters zeroed just before the fit
+          and read just after must show K1 once per round, the profiler
+          over a 2-round fit must show the K1 kernel once per round and
+          none of a plain softmax's kernels (learnt from calls of it),
+          and one round's K1 output must agree with the closed form to
+          2e-5.
 
 Prints the card's name and power limit, one JSON line of kernel figures,
 and as its last line {"ok": true, "device": {...}}. Exits non-zero without
@@ -118,6 +133,17 @@ PREFILL_SEQ, PREFILL_CHUNK = 32768, 1024
 # design's head dims: (H, KV, hd) of llama3-8b and of stablelm-1.6b
 TIMED_HEADS = ((32, 8, 128), (32, 32, 64))
 HOPPER_DESIGN, HOPPER_KERNEL = "tma-wgmma-ws", "flash_fwd_ws"
+# the tabular slice: (a) the quickstart's model-autonomy fit
+# (examples/quickstart.py: make_regression, 4 orgs, [Linear,
+# StumpBoost(40), KernelRidge, MLP((32,))], mse, 6 rounds) at n 16384, d 16
+# (KernelRidge's train kernel 13107^2 f32, 0.69 GB); (b) a K = 1024 blobs
+# classification fit, whose (16384, 1024) residual reaches K1; (c) the
+# card against the CPU at n 512
+TAB_ORGS = 4
+TAB_AUTONOMY = dict(n=16384, d=16, rounds=6)
+TAB_K1024 = dict(n=20480, d=64, k=1024, rounds=4)
+TAB_SMALL_N, TAB_CARD_CPU_RTOL = 512, 1e-3
+PROFILED_ROUNDS = 2
 
 
 def check(ok, what):
@@ -655,6 +681,237 @@ def prefill_phase(dev):
     return launches
 
 
+def autonomy_fit(n, device, rounds, mlp_org=True):
+    """The quickstart's model-autonomy fit at n rows (seed 0 data and
+    draws), its last org an MLP((32,)) or a Linear one; returns (result,
+    test slices, test y)."""
+    from repro_torch.core import gal
+    from repro_torch.core.losses import get_loss
+    from repro_torch.core.organizations import make_orgs
+    from repro_torch.data.partition import split_features
+    from repro_torch.data.synthetic import make_regression, train_test_split
+    from repro_torch.models.zoo import MLP, KernelRidge, Linear, StumpBoost
+
+    rng = np.random.default_rng(0)
+    tr, te = train_test_split(
+        make_regression(rng, n=n, d=TAB_AUTONOMY["d"]), rng)
+    xs, xs_te = split_features(tr.x, TAB_ORGS), split_features(te.x, TAB_ORGS)
+    models = [Linear(), StumpBoost(n_stumps=40), KernelRidge(),
+              MLP((32,)) if mlp_org else Linear()]
+    res = gal.fit(make_orgs(xs, models), tr.y, get_loss("mse"),
+                  gal.GALConfig(rounds=rounds),
+                  eval_sets={"test": (xs_te, te.y)}, metrics=("mad",),
+                  draws=gal.Draws(0), device=device)
+    return res, xs_te, te.y
+
+
+def k1024_fit(dev, rounds=TAB_K1024["rounds"]):
+    """The K = 1024 classification fit; returns (result, train slices,
+    train y, loss)."""
+    from repro_torch.core import gal
+    from repro_torch.core.losses import get_loss
+    from repro_torch.core.organizations import make_orgs
+    from repro_torch.data.partition import split_features
+    from repro_torch.data.synthetic import make_blobs, train_test_split
+    from repro_torch.models.zoo import MLP, Linear
+
+    rng = np.random.default_rng(0)
+    cfg = TAB_K1024
+    tr, te = train_test_split(
+        make_blobs(rng, n=cfg["n"], d=cfg["d"], k=cfg["k"]), rng)
+    xs, xs_te = split_features(tr.x, TAB_ORGS), split_features(te.x, TAB_ORGS)
+    loss = get_loss("xent")
+    res = gal.fit(make_orgs(xs, [Linear(), MLP((64,)), Linear(),
+                                 MLP((64,))]),
+                  tr.y, loss, gal.GALConfig(rounds=rounds),
+                  eval_sets={"test": (xs_te, te.y)}, metrics=("accuracy",),
+                  draws=gal.Draws(0), device=dev)
+    return res, xs, tr.y, loss
+
+
+def rel_gap(got, want):
+    """max |got - want| over the largest |want|: a quantity's gap as a
+    share of its scale."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def hold_card_to_cpu(card, cpu, label):
+    gaps = {"etas": rel_gap(card.etas, cpu.etas),
+            "weights": rel_gap(np.stack([w.cpu().numpy() for w in card.weights]),
+                               np.stack([w.numpy() for w in cpu.weights]))}
+    for col, vals in cpu.history.items():
+        if col.startswith("comm_") or col == "model_memories":
+            check(card.history[col] == vals, f"{label} {col} ledger")
+        else:
+            gaps[col] = rel_gap(card.history[col], vals)
+    print(f"[tabular] (c) {label}, card vs CPU, relative gaps "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+          + f" (tol {TAB_CARD_CPU_RTOL:g})")
+    check(card.rounds == cpu.rounds, f"{label} rounds")
+    for name, gap in gaps.items():
+        check(gap <= TAB_CARD_CPU_RTOL, f"{label} card vs CPU {name} {gap}")
+
+
+def kernel_profile(fn):
+    """{kernel name: (launches, device ms)} of fn() by torch.profiler,
+    CUDA activity only."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0}
+
+
+def tabular_phase(dev):
+    """The tabular GAL fit on the card; returns K1's figures at the
+    K = 1024 fit's shape, with its launches in that fit."""
+    from repro_torch.kernels.ops import residual_xent
+    from repro_torch.kernels.ref import residual_xent_ref
+    from repro_torch.kernels.residual_xent import residual_xent_cuda
+
+    t_phase = time.perf_counter()
+    # (c) the card against the CPU, same data and draws. One round of the
+    # quickstart's orgs holds every step of a round; the six rounds run
+    # with the MLP org swapped for a Linear one, because the MLP's 200 Adam
+    # epochs at lr 1e-2 amplify differences of rounding ~1e4-fold
+    # (ROADMAP.md C: the same fit at 1 and 8 CPU threads parts by 5.8%)
+    for rounds, mlp_org in ((1, True), (TAB_AUTONOMY["rounds"], False)):
+        label = (f"autonomy n={TAB_SMALL_N} {rounds} round(s)"
+                 + ("" if mlp_org else ", MLP org -> Linear"))
+        t0 = time.perf_counter()
+        card = autonomy_fit(TAB_SMALL_N, dev, rounds, mlp_org)[0]
+        t1 = time.perf_counter()
+        cpu = autonomy_fit(TAB_SMALL_N, "cpu", rounds, mlp_org)[0]
+        print(f"[tabular] (c) {label}: card {t1 - t0:.2f} s, CPU "
+              f"{time.perf_counter() - t1:.2f} s")
+        hold_card_to_cpu(card, cpu, label)
+
+    # (a) the quickstart's model-autonomy fit at n 16384
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res, xs_te, y_te = autonomy_fit(TAB_AUTONOMY["n"], dev,
+                                    TAB_AUTONOMY["rounds"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    tl = res.history["train_loss"]
+    print(f"[tabular] (a) autonomy n={TAB_AUTONOMY['n']} d={TAB_AUTONOMY['d']}"
+          f" orgs={TAB_ORGS} [Linear, StumpBoost(40), KernelRidge, "
+          f"MLP((32,))] mse: {secs:.3f} s for {res.rounds} rounds = "
+          f"{secs / res.rounds:.4f} s/round; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; train "
+          f"loss {tl[0]:.5f} -> {tl[-1]:.5f}, test MAD "
+          f"{res.history['test_mad'][0]:.5f} -> {res.history['test_mad'][-1]:.5f}"
+          f"; etas {[round(e, 4) for e in res.etas]}")
+    check(res.rounds == TAB_AUTONOMY["rounds"], "autonomy rounds")
+    check(all(math.isfinite(v) for v in tl + res.etas), "autonomy finite")
+    check(all(tl[i + 1] <= tl[i] + 1e-6 for i in range(len(tl) - 1)),
+          f"autonomy train loss falls monotonically: {tl}")
+    replay = float(torch.mean(torch.abs(res.predict(xs_te)
+                                        - y_te.to(dev))))
+    print(f"[tabular] (a) predict(test) MAD {replay:.6f} vs history "
+          f"{res.history['test_mad'][-1]:.6f}")
+    check(abs(replay - res.history["test_mad"][-1])
+          <= 1e-5 * res.history["test_mad"][-1], "predict replays test MAD")
+    del res, xs_te
+    torch.cuda.empty_cache()
+
+    # (b) K = 1024: the residual through K1, counted and profiled
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    res, xs, y, loss = k1024_fit(dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    tl = res.history["train_loss"]
+    acc = res.history["test_accuracy"]
+    print(f"[tabular] (b) k1024 n={TAB_K1024['n']} d={TAB_K1024['d']} "
+          f"K={TAB_K1024['k']} orgs [Linear, MLP((64,))] x 2, xent: "
+          f"{secs:.3f} s for {res.rounds} rounds = {secs / res.rounds:.4f} "
+          f"s/round; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; train "
+          f"xent {tl[0]:.5f} -> {tl[-1]:.5f}, test accuracy {acc[0]:.2f} -> "
+          f"{acc[-1]:.2f}; etas {[round(e, 4) for e in res.etas]}; launches "
+          f"{launches}")
+    check(all(math.isfinite(e) for e in res.etas), f"k1024 etas {res.etas}")
+    check(tl[-1] < tl[0], f"k1024 train xent falls: {tl}")
+    check(launches["residual_xent"] == TAB_K1024["rounds"],
+          f"K1 launched {launches['residual_xent']} times in "
+          f"{TAB_K1024['rounds']} rounds")
+
+    # outside the counted run: the profiler (kernels only: the host-side
+    # op events of a whole fit take minutes to aggregate) over a 2-round
+    # fit. The kernels of a plain softmax are learnt from calls of it
+    # (they must differ from log_softmax's, which the loss runs); each
+    # window runs 50 of them, as a window of one short kernel that follows
+    # an earlier profiler session can come back empty
+    f = res.predict(xs, rounds=2)
+    y = y.to(dev)
+    softmax_names = set(kernel_profile(
+        lambda: [torch.softmax(f, -1) for _ in range(50)]))
+    log_names = set(kernel_profile(
+        lambda: [torch.log_softmax(f, -1) for _ in range(50)]))
+    print(f"[tabular] (b) plain softmax kernels {sorted(softmax_names)}")
+    check(softmax_names and not softmax_names & log_names,
+          "softmax and log_softmax kernels are told apart")
+    kernels = kernel_profile(lambda: k1024_fit(dev, rounds=PROFILED_ROUNDS))
+    k1 = sum(c for k, (c, _) in kernels.items()
+             if "residual_xent_kernel" in k)
+    k1_ms = sum(t for k, (_, t) in kernels.items()
+                if "residual_xent_kernel" in k)
+    softmax = sum(c for k, (c, _) in kernels.items() if k in softmax_names)
+    busy = sum(t for _, t in kernels.values())
+    print(f"[tabular] (b) profiler over a {PROFILED_ROUNDS}-round k1024 fit: "
+          f"residual_xent_kernel x{k1} ({k1_ms:.4f} ms), plain softmax "
+          f"kernels x{softmax}, {busy:.1f} ms of device time in "
+          f"{sum(c for c, _ in kernels.values())} kernels")
+    for k, (c, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]:
+        print(f"[tabular]   {t:9.3f} ms x{c:<6d} {k[:90]}")
+    check(k1 == PROFILED_ROUNDS, f"the profiler shows K1 {k1} times in "
+          f"{PROFILED_ROUNDS} rounds")
+    check(softmax == 0, f"the profiled fit ran {softmax} plain softmax "
+          f"kernels")
+    # one round's K1 output against the closed form
+    before = residual_xent_cuda.launches
+    r_k1 = loss.residual(y, f)
+    torch.cuda.synchronize()
+    check(residual_xent_cuda.launches == before + 1, "K1 took the residual")
+    err = float((r_k1 - (y - torch.softmax(f, -1))).abs().max())
+    print(f"[tabular] (b) round 2's residual: max |K1 - closed form| = "
+          f"{err:.3g} (tol {F32_ATOL:g})")
+    check(err <= F32_ATOL, f"K1 residual error {err}")
+    # K1 timed at the tabular path's shape beside its plain version and
+    # one library call (int32 labels: the kernel's own input)
+    labels = torch.argmax(y, -1).to(torch.int32)
+    t, v = f.shape
+    ms = time_ms(lambda: residual_xent(f, labels))
+    plain_ms = time_ms(lambda: residual_xent_ref(f, labels))
+    y64 = labels.long()
+    library_ms = time_ms(
+        lambda: torch.nn.functional.one_hot(y64, v).float()
+        - torch.softmax(f, dim=-1))
+    n_bytes = t * v * (4 + 4) + t * 4     # read logits + labels, write r
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = t * v * 9 / PEAK_F32_FLOP_PER_S * 1e3
+    print(f"[tabular] residual_xent ({t}, {v}) f32: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library (one_hot - softmax) "
+          f"{library_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.4f} ms by "
+          f"{'bytes' if bytes_ms >= ops_ms else 'operations'} "
+          f"({n_bytes / 1e6:.1f} MB; ops {ops_ms:.4f} ms)")
+    print(f"[tabular] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"shape": [t, v], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "launches": launches["residual_xent"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -681,6 +938,8 @@ def main():
     k1["launches"] = slice_phase(dev)[k1["name"]]
     torch.cuda.empty_cache()
     k2["launches"] = prefill_phase(dev)[k2["name"]]
+    torch.cuda.empty_cache()
+    k1["tabular"] = tabular_phase(dev)
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,7 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.losses import CrossEntropyLoss
 from repro_torch.core.plan import ExecutionPlan, plan_lm_orgs
-from repro_torch.core.weights import fit_weights, uniform_weights
+from repro_torch.core.weights import combine, fit_weights, uniform_weights
 from repro_torch.kernels.ops import residual_xent
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.lbfgs import line_search
@@ -148,8 +148,7 @@ class GALLMResult:
                              self.group_params[gi])
                 logits, _ = tfm.apply(p, cfg, views[i])
                 preds.append(logits.float().reshape(b * s, v))
-            direction = torch.einsum("m,mnk->nk", self.weights[tau],
-                                     torch.stack(preds))
+            direction = combine(self.weights[tau], preds)
             f = f + self.etas[tau] * direction
         return f.reshape(b, s, v)
 
@@ -239,7 +238,7 @@ def fit_lm(orgs: List[LMOrganization], tokens: torch.Tensor,
                             generator=generator)
         else:
             w = uniform_weights(len(orgs), device=device)
-        direction = torch.einsum("m,mnk->nk", w, preds)
+        direction = combine(w, preds)
         del preds                 # (M, B*S, V) f32: free it for the search
         eta = line_search(lambda e: xent(y1, f + e * direction),
                           method=spec["eta_method"], x0=1.0, device=device)

@@ -89,12 +89,14 @@ def _import_reference():
     import jax
     import jax.numpy as jnp
     from repro.configs import get_arch
-    from repro.core import gal_lm, losses, weights
-    from repro.data import tokens
+    from repro.core import (gal, gal_lm, losses, membership, organizations,
+                            privacy, protocol_sim, weights)
+    from repro.data import partition, synthetic, tokens
     from repro.kernels import ref
     from repro.kernels.flash_attention import flash_attention_kernel
     from repro.kernels.residual_xent import residual_xent_kernel
-    from repro.models import attention, layers, transformer
+    from repro.metrics import metrics
+    from repro.models import attention, layers, transformer, zoo
     from repro.optim import lbfgs, optimizers
     from repro.train import steps
     return types.SimpleNamespace(
@@ -103,7 +105,9 @@ def _import_reference():
         residual_xent_kernel=residual_xent_kernel,
         flash_attention_kernel=flash_attention_kernel, attention=attention,
         layers=layers, tfm=transformer, lbfgs=lbfgs, optimizers=optimizers,
-        steps=steps)
+        steps=steps, gal=gal, organizations=organizations, privacy=privacy,
+        protocol_sim=protocol_sim, membership=membership,
+        synthetic=synthetic, partition=partition, metrics=metrics, zoo=zoo)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -133,6 +137,65 @@ def torch_to_numpy(tree):
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
+
+
+def jax_tree_to_torch(tree, device="cpu"):
+    """A jax tree of dicts and lists as the same tree of torch tensors."""
+    if isinstance(tree, dict):
+        return {k: jax_tree_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(jax_tree_to_torch(v, device) for v in tree)
+    arr = np.asarray(tree)
+    if arr.dtype == np.int32:            # StumpBoost's feature indices
+        arr = arr.astype(np.int64)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def reference_model(reference, model):
+    """The reference zoo model of the port model's class and fields."""
+    cls = getattr(reference.zoo, type(model).__name__)
+    return cls(**dataclasses.asdict(model))
+
+
+class ReferenceDraws:
+    """The draws of the port's ``gal.fit`` (``repro_torch.core.gal.Draws``)
+    replayed from the reference's own key chain: round t's key is the
+    second half of the t-th ``jax.random.split`` of ``key``, as the
+    reference's ``_fit_python`` takes it, and each draw is folded in from
+    it as the reference folds it. Values cross as numpy."""
+
+    def __init__(self, reference, key):
+        self.ref = reference
+        self._key = key
+        self._rounds = []
+
+    def k_round(self, t):
+        jax = self.ref.jax
+        while len(self._rounds) <= t:
+            self._key, k = jax.random.split(self._key)
+            self._rounds.append(k)
+        return self._rounds[t]
+
+    def init_params(self, t, org, x, k):
+        jax, jnp = self.ref.jax, self.ref.jnp
+        params = reference_model(self.ref, org.model).init(
+            jax.random.fold_in(self.k_round(t), org.index),
+            jnp.zeros((1, x.shape[-1]), jnp.float32), k)
+        return jax_tree_to_torch(params, x.device)
+
+    def theta0(self, t, org_ids):
+        jax, jnp = self.ref.jax, self.ref.jnp
+        rng = jax.random.fold_in(self.k_round(t), 29)
+        keys = jax.vmap(lambda i: jax.random.fold_in(rng, i))(
+            jnp.asarray(org_ids, jnp.uint32))
+        theta = np.asarray(0.01 * jax.vmap(
+            lambda kk: jax.random.normal(kk, (), jnp.float32))(keys))
+        return {i: torch.tensor(theta[j]) for j, i in enumerate(org_ids)}
+
+    def privacy_u(self, t, shape):
+        jax = self.ref.jax
+        return torch.from_numpy(np.asarray(jax.random.uniform(
+            jax.random.fold_in(self.k_round(t), 13), tuple(shape))).copy())
 
 
 def port_cfg(cfg):
